@@ -1,10 +1,10 @@
-// emsar_tpu native ingest: alignment streaming + signature collapse.
+// emsar_jax native ingest: alignment streaming + signature collapse.
 //
 // C++ replacement for the reference's alignment ingestion stack
 // (bowtie/SAM/BAM readers + per-read alignment lists + signature read
 // counting; reference: src/emsar_functions.c:210-943, src/alignment.c,
 // vendored samtools bgzf.c/bam.c).  Exposed through a C ABI consumed via
-// ctypes (emsar_tpu/ingest/native.py).
+// ctypes (emsar_jax/ingest/native.py).
 //
 // Semantics (must match the Python path bit-for-bit):
 //  * per read: dedup identical (tid,pos,fraglen); keep only min-mismatch
@@ -1511,7 +1511,7 @@ extern "C" int emsar_ingest_bam(
 // ---------------------------------------------------------------------------
 // hash grouping for index construction
 //
-// The device computes 128-bit window hashes (emsar_tpu/index/kernels.py);
+// The device computes 128-bit window hashes (emsar_jax/index/kernels.py);
 // grouping equal hashes is a hash-table problem, not a sort — this
 // open-addressing table runs at ~50-100M rows/s on the host, replacing the
 // O(N log^2 N) bitonic device sort for run detection.

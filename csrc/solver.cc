@@ -1,6 +1,6 @@
-// emsar_tpu native solver polish: float64 SQUAREM EM cycles on the host.
+// emsar_jax native solver polish: float64 SQUAREM EM cycles on the host.
 //
-// Mirrors emsar_tpu/model/solver.py::polish_host_f64 (same update rule,
+// Mirrors emsar_jax/model/solver.py::polish_host_f64 (same update rule,
 // same stabilized SQUAREM acceptance, same termwise likelihood-gain
 // convergence test) over the flat edge-list problem.  Used to close the
 // float32 convergence floor after the device solve; a C++ loop makes the

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Iterator, List, Optional, Tuple
 
-from emsar_tpu.io.fasta import revcomp_bytes
+from emsar_jax.io.fasta import revcomp_bytes
 
 
 def _occurrences(hay: bytes, needle: bytes) -> Iterator[int]:

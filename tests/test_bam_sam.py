@@ -5,11 +5,11 @@ import subprocess
 
 import numpy as np
 
-from emsar_tpu.cli import emsar as emsar_cli
-from emsar_tpu.io.bam import read_bam_records, write_bam
-from emsar_tpu.io.fasta import build_transcriptome, revcomp_bytes
-from emsar_tpu.io.sam import read_sam_records
-from emsar_tpu.sim import fragments_to_reads, simulate_fragments
+from emsar_jax.cli import emsar as emsar_cli
+from emsar_jax.io.bam import read_bam_records, write_bam
+from emsar_jax.io.fasta import build_transcriptome, revcomp_bytes
+from emsar_jax.io.sam import read_sam_records
+from emsar_jax.sim import fragments_to_reads, simulate_fragments
 from tests.aligner import align_se
 from tests.util import (REF_EMSAR, random_transcriptome, run_ref_build,
                         write_fasta)

@@ -5,9 +5,9 @@ equality is achievable)."""
 import numpy as np
 import pytest
 
-from emsar_tpu.config import BuildConfig, StrandType
-from emsar_tpu.index.build import build_pe_index, build_se_index
-from emsar_tpu.io.fasta import build_transcriptome
+from emsar_jax.config import BuildConfig, StrandType
+from emsar_jax.index.build import build_pe_index, build_se_index
+from emsar_jax.io.fasta import build_transcriptome
 from tests.util import random_transcriptome, run_ref_build, write_fasta
 
 
@@ -96,7 +96,7 @@ def test_pe_cluster_chunk_path_golden(tmp_path, monkeypatch):
     """Pin the cluster-chunked expansion (the human-scale path): the
     delta-shift global pipeline handles every in-budget build, so this
     forces the budget to 0 to keep the big-build path under test."""
-    from emsar_tpu.index import device_build
+    from emsar_jax.index import device_build
     monkeypatch.setattr(device_build, "PE_GLOBAL_BUDGET", 0)
     _run_case(tmp_path, np.random.default_rng(23), n=15, readlength=20,
               pe=True, max_frag=60, min_frag=1)
@@ -108,7 +108,7 @@ def test_pe_multislab_hash_golden(tmp_path, monkeypatch):
     """Pin the multi-slab rank hash pass (human-scale slab chunking —
     slab boundaries, unaligned rc bad-bit windows) at small scale via
     the EMSAR_PE_SLAB override, through both expansion paths."""
-    from emsar_tpu.index import device_build
+    from emsar_jax.index import device_build
     monkeypatch.setenv("EMSAR_PE_SLAB", "1024")
     _run_case(tmp_path, np.random.default_rng(25), n=25, readlength=21,
               pe=True, max_frag=70, min_frag=1)
@@ -121,7 +121,7 @@ def test_pe_stranded_chunk_with_N_golden(tmp_path, monkeypatch):
     """Fast singleton slab pass with N-containing sequences: invalid
     windows carry a zero neighbor-distance word and must drop exactly
     like the reference's noncanonical filter."""
-    from emsar_tpu.index import device_build
+    from emsar_jax.index import device_build
     monkeypatch.setattr(device_build, "PE_GLOBAL_BUDGET", 0)
     _run_case(tmp_path, np.random.default_rng(29), n=12, readlength=15,
               pe=True, strand="ssfr", max_frag=70, min_frag=1, n_frac=0.02)
@@ -132,7 +132,7 @@ def test_pe_wide_fraglen_chunk_golden(tmp_path, monkeypatch):
     through the cluster-chunked path: ssfr exercises the fast singleton
     slab pass (neighbor-distance table), ns the legacy singleton chunks.
     Reference d-loop: src/emsar_functions.c:2854-2872."""
-    from emsar_tpu.index import device_build
+    from emsar_jax.index import device_build
     monkeypatch.setattr(device_build, "PE_GLOBAL_BUDGET", 0)
     _run_case(tmp_path, np.random.default_rng(27), n=12, readlength=20,
               pe=True, strand="ssfr", max_frag=120, min_frag=1)
@@ -168,7 +168,7 @@ def test_rsh_text_roundtrip(tmp_path):
     idx = build_se_index(tx, 20, 20, cfg)
     p1 = str(tmp_path / "a.rsh")
     idx.write_text(p1)
-    from emsar_tpu.io.rsh import RshIndex
+    from emsar_jax.io.rsh import RshIndex
     idx2 = RshIndex.read_text(p1)
     p2 = str(tmp_path / "b.rsh")
     idx2.write_text(p2)
@@ -186,7 +186,7 @@ def test_pe_stranded_chunk_min_frag_golden(tmp_path, monkeypatch):
     separator/d-range guards bound d = d0 + slot, not the slot alone —
     the human F290-300 build overcounted singles by up to d0 before the
     rb shift (every earlier case used min_frag=1, d0=0)."""
-    from emsar_tpu.index import device_build
+    from emsar_jax.index import device_build
     monkeypatch.setattr(device_build, "PE_GLOBAL_BUDGET", 0)
     _run_case(tmp_path, np.random.default_rng(30), n=15, readlength=20,
               pe=True, strand="ssfr", max_frag=120, min_frag=50)
@@ -199,7 +199,7 @@ def test_sig_table_golden(tmp_path, monkeypatch):
     directory probe + claim-insert + per-row dense fraglen vectors,
     collision/spill fallback to the append table) forced on at small
     scale through the PE global, PE cluster-chunked, and SE pipelines."""
-    from emsar_tpu.index import device_build
+    from emsar_jax.index import device_build
     monkeypatch.setenv("EMSAR_SIG_TABLE", "1")
     _run_case(tmp_path, np.random.default_rng(30), n=15, readlength=20,
               pe=True, max_frag=60, min_frag=1)
@@ -217,7 +217,7 @@ def test_sig_table_spill_golden(tmp_path, monkeypatch):
     through the claim-winner -> spill -> append-table fallback, which
     must still produce byte-identical output (routing is per-record and
     counts merge associatively at finalize)."""
-    from emsar_tpu.index import device_build
+    from emsar_jax.index import device_build
     monkeypatch.setenv("EMSAR_SIG_TABLE", "1")
     orig = device_build._caps_partitioned
 

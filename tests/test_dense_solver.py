@@ -1,17 +1,18 @@
-"""The dense-batched (MXU) module solver and the Pallas VMEM kernel must
-match the CSR solver."""
+"""The dense-batched module solver must match the CSR solver, in float64
+and in float32, and its batch padding must be inert."""
 
 import numpy as np
 import pytest
 
-from emsar_tpu.model.dense import (partition_modules, solve_dense_batch,
+from emsar_jax.model import dense
+from emsar_jax.model.dense import (partition_modules, solve_dense_batch,
                                    SIZE_CLASSES)
-from emsar_tpu.model.modules import build_segment_graph, decompose_modules
-from emsar_tpu.model.solver import build_problem, solve
-from emsar_tpu.config import BuildConfig
-from emsar_tpu.index.build import build_se_index
-from emsar_tpu.io.fasta import build_transcriptome
-from emsar_tpu.sim import gene_family_transcriptome
+from emsar_jax.model.modules import build_segment_graph, decompose_modules
+from emsar_jax.model.solver import build_problem, solve
+from emsar_jax.config import BuildConfig
+from emsar_jax.index.build import build_se_index
+from emsar_jax.io.fasta import build_transcriptome
+from emsar_jax.sim import gene_family_transcriptome
 from tests.util import random_transcriptome
 
 
@@ -34,12 +35,12 @@ def _problem(seed=0, gene_family=True):
     return graph, modules, eumaps, rc
 
 
-def _fpkm_dense(graph, modules, eumaps, rc, use_pallas, dtype=np.float64):
+def _fpkm_dense(graph, modules, eumaps, rc, dtype=np.float64):
     part = partition_modules(graph, modules, eumaps, rc, dtype=dtype)
     assert part.batches, "expected at least one dense batch"
     fpkm = np.zeros(graph.n_transcripts)
     for batch in part.batches:
-        theta, _ = solve_dense_batch(batch, 1e-12, use_pallas=use_pallas)
+        theta, _ = solve_dense_batch(batch, 1e-12)
         mask = batch.tid_map >= 0
         fpkm[batch.tid_map[mask]] = theta[mask]
     return fpkm, part
@@ -62,7 +63,7 @@ def test_dense_matches_csr():
     graph, modules, eumaps, rc = _problem()
     problem = build_problem(graph, modules, eumaps, rc)
     ref, _, _ = solve(problem, epsilon=1e-12)
-    fpkm, part = _fpkm_dense(graph, modules, eumaps, rc, use_pallas=False)
+    fpkm, part = _fpkm_dense(graph, modules, eumaps, rc)
     # merge: CSR covers any modules the dense classes didn't
     covered = np.zeros(graph.n_transcripts, dtype=bool)
     for b in part.batches:
@@ -81,32 +82,83 @@ def test_dense_matches_csr():
                                rtol=1e-4, atol=1e-6)
 
 
-def test_pallas_kernel_matches_jax_dense():
+def test_float32_dense_matches_float64():
+    """The float32 dense path (the default on a GPU) reaches the float64
+    optimum within float32's resolution: compare likelihood and the
+    identifiable segment intensities, not collinear coordinates."""
     graph, modules, eumaps, rc = _problem(seed=1)
     problem = build_problem(graph, modules, eumaps, rc)
-    f_jax, _ = _fpkm_dense(graph, modules, eumaps, rc, use_pallas=False,
-                           dtype=np.float32)
-    f_pl, _ = _fpkm_dense(graph, modules, eumaps, rc, use_pallas=True,
-                          dtype=np.float32)
-    # both reach the same optimum; coordinates may differ along collinear
-    # directions, so compare likelihood + identifiable intensities
-    ll_jax = _loglik(problem, f_jax)
-    ll_pl = _loglik(problem, f_pl)
-    assert abs(ll_pl - ll_jax) <= 1e-5 * abs(ll_jax)
+    f64, _ = _fpkm_dense(graph, modules, eumaps, rc)
+    f32, _ = _fpkm_dense(graph, modules, eumaps, rc, dtype=np.float32)
+    ll64 = _loglik(problem, f64)
+    ll32 = _loglik(problem, f32)
+    assert abs(ll32 - ll64) <= 1e-5 * abs(ll64)
 
     def seg_intensity(th):
         s = np.zeros(len(problem.eumaps))
         np.add.at(s, problem.edge_cid,
                   problem.edge_mult * th[problem.edge_tid])
         return problem.eumaps * s
-    np.testing.assert_allclose(seg_intensity(f_pl), seg_intensity(f_jax),
+    np.testing.assert_allclose(seg_intensity(f32), seg_intensity(f64),
                                rtol=5e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("b", [1, 7, 8, 9, 63, 64, 65, 100, 1000, 4097,
+                               123457])
+def test_quantize_b_shapes(b):
+    """Batch sizes round up to a multiple of an eighth of their next power
+    of two: never below b or 8, a multiple of 8, and padded by less than
+    that eighth."""
+    q = dense._quantize_b(b)
+    assert q >= b and q >= 8 and q % 8 == 0
+    assert q - b < max((1 << (b - 1).bit_length()) // 8, 8)
+    assert dense._quantize_b(q) == q  # idempotent: padded sizes are fixed
+
+
+def test_quantize_b_shape_count_per_octave():
+    sizes = {dense._quantize_b(b) for b in range(1025, 2049)}
+    assert sizes == {1280, 1536, 1792, 2048}
+
+
+def test_pad_b_rows_are_inert():
+    """Padding adds rows with no incidences and E = R = 0; solving the
+    padded batch gives the unpadded rows exactly what the unpadded solve
+    gives, and the padded rows stay 0."""
+    import jax.numpy as jnp
+
+    graph, modules, eumaps, rc = _problem(seed=4)
+    part = partition_modules(graph, modules, eumaps, rc, dtype=np.float64)
+    batch = next(b for b in part.batches
+                 if dense._quantize_b(b.shape[0]) != b.shape[0])
+    padded, B0 = dense._pad_b(batch)
+    B, C, T = padded.shape
+    assert B0 == batch.shape[0] and B == dense._quantize_b(B0)
+    assert (C, T) == batch.shape[1:]
+    np.testing.assert_array_equal(padded.flat_idx, batch.flat_idx)
+    assert not padded.eumaps[B0:].any() and not padded.reads[B0:].any()
+    assert (padded.tid_map[B0:] == -1).all() and (padded.sids[B0:] == -1).all()
+
+    def run(bt):
+        th, _ = dense._dense_solve_jax(
+            jnp.asarray(bt.flat_idx), jnp.asarray(bt.eumaps),
+            jnp.asarray(bt.reads), jnp.asarray(1e-12), *bt.shape, 8, 2048)
+        return np.asarray(th)
+
+    th_pad, th_raw = run(padded), run(batch)
+    assert not th_pad[B0:].any()
+    # values below 1e-12 of the largest are converged zeros whose last
+    # iterate depends on the row count through reduction order
+    atol = 1e-12 * float(np.abs(th_raw).max())
+    np.testing.assert_allclose(th_pad[:B0], th_raw, rtol=1e-12, atol=atol)
+    theta, _ = solve_dense_batch(batch, 1e-12)
+    assert theta.shape == (B0, T)
+    np.testing.assert_allclose(theta, th_raw, rtol=1e-12, atol=atol)
+
+
 def test_quantify_auto_mode_matches_csr():
-    from emsar_tpu.config import QuantConfig
-    from emsar_tpu.model.quantify import quantify_sample
-    from emsar_tpu.ingest.collapse import SampleCounts
+    from emsar_jax.config import QuantConfig
+    from emsar_jax.model.quantify import quantify_sample
+    from emsar_jax.ingest.collapse import SampleCounts
     graph, modules, eumaps, rc = _problem(seed=2)
     # fabricate an index-shaped SampleCounts through the pipeline instead:
     # run quantify_sample twice with different solver modes

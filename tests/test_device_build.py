@@ -5,10 +5,10 @@ transcriptomes, its .rsh must be byte-identical to the exact NumPy path
 import numpy as np
 import pytest
 
-from emsar_tpu.config import BuildConfig, StrandType
-from emsar_tpu.index.build import build_pe_index, build_se_index
-from emsar_tpu.index import device_build
-from emsar_tpu.io.fasta import build_transcriptome
+from emsar_jax.config import BuildConfig, StrandType
+from emsar_jax.index.build import build_pe_index, build_se_index
+from emsar_jax.index import device_build
+from emsar_jax.io.fasta import build_transcriptome
 from tests.util import random_transcriptome, run_ref_build, write_fasta
 
 
@@ -124,7 +124,7 @@ def test_device_ref_mirror_matches_host_pack():
     """DeviceRef ships the fw half only and mirrors the rc half on device
     (_mirror_ref_dev); the resulting packed-code and bad-bit tables must
     equal a direct host pack of the full code array."""
-    from emsar_tpu.index.device_build import (DeviceRef, _pad_to,
+    from emsar_jax.index.device_build import (DeviceRef, _pad_to,
                                               _quantize_size)
 
     rng = np.random.default_rng(77)
@@ -204,7 +204,7 @@ def test_partitioned_rank_fast_singles(tmp_path, monkeypatch):
     neighbor-distance table derives from the bucket-major stream AFTER
     the partition copies are freed (_dd_from_stream; building it inside
     the bucket loop OOMed at human scale)."""
-    from emsar_tpu.index import device_build
+    from emsar_jax.index import device_build
     monkeypatch.setattr(device_build, "PE_GLOBAL_BUDGET", 0)
     rng = np.random.default_rng(142)
     names, seqs = random_transcriptome(rng, 30, min_len=100, max_len=400,
@@ -217,3 +217,29 @@ def test_partitioned_rank_fast_singles(tmp_path, monkeypatch):
     part = build_pe_index(tx, 24, cfg, backend="device")
     assert _text(part, tmp_path, "p.rsh") == _text(single, tmp_path,
                                                    "1.rsh")
+
+
+def test_single_sort_dense_records_fit_table(tmp_path, monkeypatch):
+    """Single-sort SE builds whose sorted rows are dense with multi runs
+    (gene families share exons, so up to half the rows start a record)
+    must accumulate on the device: each launch covers at most TABCAP/2
+    rows, so its records fit the TABCAP/4 block.  A shrunken table makes
+    a small fixture as dense as a slab of the human-scale one."""
+    from emsar_jax.sim import gene_family_transcriptome
+
+    rng = np.random.default_rng(150)
+    names, seqs, _ = gene_family_transcriptome(rng, 30, n_exons=8,
+                                               min_exon=60, max_exon=200)
+    tx = build_transcriptome(names, seqs)
+    cfg = BuildConfig(strand=StrandType.parse("ns", False), verbose=0)
+    real_caps = device_build._caps_partitioned
+
+    def small_table(ncand, nfl=1):
+        c = real_caps(ncand, nfl=nfl)
+        c["TABCAP"] = device_build._next_pow2(ncand) // 4
+        return c
+
+    monkeypatch.setattr(device_build, "_caps_partitioned", small_table)
+    dev = device_build.build_se_index_device(tx, 25, 25, cfg)  # no fallback
+    ref = build_se_index(tx, 25, 25, cfg, backend="numpy")
+    assert _text(dev, tmp_path, "d.rsh") == _text(ref, tmp_path, "n.rsh")

@@ -1,6 +1,6 @@
 import numpy as np
 
-from emsar_tpu.io.fasta import (Transcriptome, build_transcriptome,
+from emsar_jax.io.fasta import (Transcriptome, build_transcriptome,
                                 parse_header, read_fasta)
 from tests.util import random_transcriptome, write_fasta
 

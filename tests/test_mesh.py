@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from emsar_tpu.model.modules import build_segment_graph, decompose_modules
-from emsar_tpu.model.solver import build_problem, solve
-from emsar_tpu.parallel.mesh import make_mesh, shard_problem, solve_sharded
-from emsar_tpu.config import BuildConfig
-from emsar_tpu.index.build import build_se_index
-from emsar_tpu.io.fasta import build_transcriptome
+from emsar_jax.model.modules import build_segment_graph, decompose_modules
+from emsar_jax.model.solver import build_problem, solve
+from emsar_jax.parallel.mesh import make_mesh, shard_problem, solve_sharded
+from emsar_jax.config import BuildConfig
+from emsar_jax.index.build import build_se_index
+from emsar_jax.io.fasta import build_transcriptome
 from tests.util import random_transcriptome
 
 

@@ -4,10 +4,10 @@ the reference binary end-to-end."""
 import numpy as np
 import pytest
 
-from emsar_tpu.config import QuantConfig, StrandType
-from emsar_tpu.ingest import native
-from emsar_tpu.cli.emsar import _collapse_python
-from emsar_tpu.io.rsh import RshIndex
+from emsar_jax.config import QuantConfig, StrandType
+from emsar_jax.ingest import native
+from emsar_jax.cli.emsar import _collapse_python
+from emsar_jax.io.rsh import RshIndex
 from tests.test_quantify_golden import _make_fixture
 
 
@@ -60,9 +60,9 @@ def test_native_matches_python_bowtie(tmp_path, pe, strand):
 @requires_native
 def test_native_matches_python_bam_sam(tmp_path):
     from tests.test_bam_sam import _pe_records, _write_sam
-    from emsar_tpu.io.bam import write_bam
-    from emsar_tpu.io.fasta import build_transcriptome
-    from emsar_tpu.sim import fragments_to_reads, simulate_fragments
+    from emsar_jax.io.bam import write_bam
+    from emsar_jax.io.fasta import build_transcriptome
+    from emsar_jax.sim import fragments_to_reads, simulate_fragments
     from tests.util import random_transcriptome, run_ref_build, write_fasta
 
     rng = np.random.default_rng(70)
@@ -111,9 +111,9 @@ def test_parallel_bam_odd_group_fallback(tmp_path):
     pairing frame cross group boundaries; the parallel path must detect the
     crossing at its split points and fall back to the exact serial pass."""
     from tests.test_bam_sam import _pe_records
-    from emsar_tpu.io.bam import write_bam
-    from emsar_tpu.io.fasta import build_transcriptome
-    from emsar_tpu.sim import fragments_to_reads, simulate_fragments
+    from emsar_jax.io.bam import write_bam
+    from emsar_jax.io.fasta import build_transcriptome
+    from emsar_jax.sim import fragments_to_reads, simulate_fragments
     from tests.util import random_transcriptome, run_ref_build, write_fasta
 
     rng = np.random.default_rng(71)
@@ -155,8 +155,8 @@ def test_native_posbias_matches_python(tmp_path, pe):
     """-m 1: the native posbias accrual must reproduce the Python
     PosBias arrays exactly (incl. the NumPy negative-index wraparound on
     freq_3 and the unavailability suffix sums), across thread counts."""
-    from emsar_tpu.ingest.collapse import PosBias
-    from emsar_tpu.io.fasta import read_fasta
+    from emsar_jax.ingest.collapse import PosBias
+    from emsar_jax.io.fasta import read_fasta
 
     rng = np.random.default_rng(83 + pe)
     fasta, rsh, aln = _make_fixture(tmp_path, rng, n_tx=25, readlength=18,
@@ -197,10 +197,10 @@ def test_native_posbias_sam_bam(tmp_path, fmt):
     them through the same native flush path as bowtie, including the
     parallel SAM byte-range split and parallel BAM inflate)."""
     from tests.test_bam_sam import _pe_records, _write_sam
-    from emsar_tpu.io.bam import write_bam
-    from emsar_tpu.io.fasta import build_transcriptome, read_fasta
-    from emsar_tpu.ingest.collapse import PosBias
-    from emsar_tpu.sim import fragments_to_reads, simulate_fragments
+    from emsar_jax.io.bam import write_bam
+    from emsar_jax.io.fasta import build_transcriptome, read_fasta
+    from emsar_jax.ingest.collapse import PosBias
+    from emsar_jax.sim import fragments_to_reads, simulate_fragments
     from tests.util import random_transcriptome, run_ref_build, write_fasta
 
     rng = np.random.default_rng(90)

@@ -4,8 +4,8 @@ implementation it mirrors (model/solver.py::polish_host_f64)."""
 import numpy as np
 import pytest
 
-from emsar_tpu.ingest import native as native_mod
-from emsar_tpu.model.solver import SolverProblem, polish_host_f64
+from emsar_jax.ingest import native as native_mod
+from emsar_jax.model.solver import SolverProblem, polish_host_f64
 
 pytestmark = pytest.mark.skipif(not native_mod.available(),
                                 reason="native library unavailable")

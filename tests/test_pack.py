@@ -1,8 +1,8 @@
 import numpy as np
 
-from emsar_tpu.index import pack
-from emsar_tpu.index.kernels import run_lengths, sort_runs
-from emsar_tpu.io.fasta import build_transcriptome
+from emsar_jax.index import pack
+from emsar_jax.index.kernels import run_lengths, sort_runs
+from emsar_jax.io.fasta import build_transcriptome
 
 
 def _keys_bruteforce(seq: bytes, positions, rl):

@@ -3,12 +3,12 @@ no tests; these pin model invariants independent of the golden oracle)."""
 
 import numpy as np
 
-from emsar_tpu.config import BuildConfig, QuantConfig, StrandType
-from emsar_tpu.index.build import build_se_index
-from emsar_tpu.ingest.collapse import ReadCollapser, group_alignments
-from emsar_tpu.io.fasta import build_transcriptome
-from emsar_tpu.model.quantify import quantify_sample
-from emsar_tpu.sim import gene_family_transcriptome, simulate_fragments
+from emsar_jax.config import BuildConfig, QuantConfig, StrandType
+from emsar_jax.index.build import build_se_index
+from emsar_jax.ingest.collapse import ReadCollapser, group_alignments
+from emsar_jax.io.fasta import build_transcriptome
+from emsar_jax.model.quantify import quantify_sample
+from emsar_jax.sim import gene_family_transcriptome, simulate_fragments
 from tests.util import random_transcriptome
 
 

@@ -12,9 +12,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from emsar_tpu.cli import emsar as emsar_cli
-from emsar_tpu.io.fasta import build_transcriptome
-from emsar_tpu.sim import fragments_to_reads, simulate_fragments
+from emsar_jax.cli import emsar as emsar_cli
+from emsar_jax.io.fasta import build_transcriptome
+from emsar_jax.sim import fragments_to_reads, simulate_fragments
 from tests.aligner import bowtie_lines_pe, bowtie_lines_se
 from tests.util import (random_transcriptome, run_ref_build, write_fasta,
                         REF_EMSAR)
@@ -182,11 +182,11 @@ def test_sd_column_nonzero_on_collinear_modules(tmp_path):
     reference (src/emsar_main.c:444-450), while the FPKM/TPM point
     estimate stays the deterministic round-0 solve (documented divergence
     in outputs.write_fpkm)."""
-    from emsar_tpu.config import QuantConfig, StrandType
-    from emsar_tpu.io.rsh import RshIndex
-    from emsar_tpu.cli.emsar import _collapse_python
-    from emsar_tpu.model.quantify import quantify_sample
-    from emsar_tpu.io.outputs import write_fpkm
+    from emsar_jax.config import QuantConfig, StrandType
+    from emsar_jax.io.rsh import RshIndex
+    from emsar_jax.cli.emsar import _collapse_python
+    from emsar_jax.model.quantify import quantify_sample
+    from emsar_jax.io.outputs import write_fpkm
     import os
 
     rng = np.random.default_rng(91)

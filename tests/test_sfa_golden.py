@@ -23,10 +23,10 @@ key order == strncmp order over readlength-long windows).
 
 import numpy as np
 
-from emsar_tpu.config import BuildConfig, StrandType
-from emsar_tpu.index import pack
-from emsar_tpu.index.build import build_pe_index, build_se_index
-from emsar_tpu.io.fasta import build_transcriptome
+from emsar_jax.config import BuildConfig, StrandType
+from emsar_jax.index import pack
+from emsar_jax.index.build import build_pe_index, build_se_index
+from emsar_jax.io.fasta import build_transcriptome
 from tests.util import random_transcriptome, run_ref_build, write_fasta
 
 

@@ -5,9 +5,9 @@ range; fragment length == per-read read length."""
 import numpy as np
 import subprocess
 
-from emsar_tpu.cli import emsar as emsar_cli
-from emsar_tpu.io.fasta import build_transcriptome
-from emsar_tpu.sim import simulate_fragments
+from emsar_jax.cli import emsar as emsar_cli
+from emsar_jax.io.fasta import build_transcriptome
+from emsar_jax.sim import simulate_fragments
 from tests.aligner import bowtie_lines_se
 from tests.test_quantify_golden import _parse_fpkm
 from tests.util import REF_EMSAR, random_transcriptome, write_fasta

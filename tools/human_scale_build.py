@@ -9,8 +9,8 @@ Usage:  python tools/human_scale_build.py [--genes N] [--readlength L]
         [--cpu] [--skip-ref]
 
 The fixture and the reference build are cached under bench_cache/ so the
-expensive parts run once.  On the TPU the first run pays one-time remote
-compiles per kernel shape (cached in bench_cache/jit_cache).
+expensive parts run once; compiled kernels persist in the compile cache
+(emsar_jax/utils/jitcache.py).
 """
 
 from __future__ import annotations
@@ -49,14 +49,14 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    from emsar_tpu.utils import jitcache
-    jitcache.enable(os.path.join(CACHE, "jit_cache"))
+    from emsar_jax.utils import jitcache
+    jitcache.enable()
     log(f"jax platform: {jax.devices()[0].platform}")
 
     tag = f"human{args.genes}"
     fasta = os.path.join(CACHE, f"{tag}.fa")
     if not os.path.exists(fasta):
-        from emsar_tpu.sim import gene_family_transcriptome
+        from emsar_jax.sim import gene_family_transcriptome
         from tests.util import write_fasta
         log(f"generating {args.genes}-gene transcriptome...")
         rng = np.random.default_rng(99)
@@ -65,7 +65,7 @@ def main():
             f"{sum(len(s) for s in seqs) / 1e6:.0f} Mbp")
         write_fasta(fasta, names, seqs)
 
-    from emsar_tpu.io.fasta import read_fasta
+    from emsar_jax.io.fasta import read_fasta
     log("reading fasta...")
     tx = read_fasta(fasta, "E")
     log(f"{tx.n_transcripts} transcripts, seq_array {tx.seqlength / 1e6:.0f}"
@@ -94,8 +94,8 @@ def main():
                 t_ref = float(fh.read().strip())
             log(f"reference build (cached): {t_ref:.1f}s")
 
-    from emsar_tpu.config import BuildConfig, StrandType
-    from emsar_tpu.index.build import build_pe_index, build_se_index
+    from emsar_jax.config import BuildConfig, StrandType
+    from emsar_jax.index.build import build_pe_index, build_se_index
     log(f"device build {mode} starting...")
     t0 = time.perf_counter()
     if args.pe:

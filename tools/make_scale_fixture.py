@@ -17,15 +17,18 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from emsar_tpu.sim import gene_family_transcriptome  # noqa: E402
+from emsar_jax.sim import gene_family_transcriptome  # noqa: E402
 
 
-def main():
-    n_genes = int(sys.argv[1]) if len(sys.argv) > 1 else 42000
-    out = sys.argv[2] if len(sys.argv) > 2 else os.path.join(
-        REPO, "bench_cache", "scale.fa")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    rng = np.random.default_rng(20260820)
+SEED = 20260820
+
+
+def write_fixture(n_genes: int, out: str, seed: int = SEED):
+    """Write the fixture FASTA; returns (n_transcripts, total_bases).
+    Genes are drawn in order from one stream, so a smaller ``n_genes``
+    gives a prefix (a slab) of a larger fixture with the same seed."""
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    rng = np.random.default_rng(seed)
     names, seqs, _ = gene_family_transcriptome(
         rng, n_genes, min_isoforms=2, max_isoforms=6, n_exons=10,
         min_exon=120, max_exon=500)
@@ -33,7 +36,15 @@ def main():
     with open(out, "w", buffering=1 << 22) as fh:
         for n, s in zip(names, seqs):
             fh.write(f">{n}\n{s.decode('latin-1')}\n")
-    print(f"{out}: {len(names)} transcripts, {total/1e6:.1f} Mbp")
+    return len(names), total
+
+
+def main():
+    n_genes = int(sys.argv[1]) if len(sys.argv) > 1 else 42000
+    out = sys.argv[2] if len(sys.argv) > 2 else os.path.join(
+        REPO, "bench_cache", "scale.fa")
+    n_tx, total = write_fixture(n_genes, out)
+    print(f"{out}: {n_tx} transcripts, {total/1e6:.1f} Mbp")
 
 
 if __name__ == "__main__":

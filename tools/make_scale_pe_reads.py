@@ -32,7 +32,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from make_scale_reads import build_structure, N_EXONS  # noqa: E402
+from tools.make_scale_reads import build_structure, N_EXONS  # noqa: E402
 
 
 def main():
@@ -43,7 +43,15 @@ def main():
     fmax = int(sys.argv[5]) if len(sys.argv) > 5 else 300
     out = sys.argv[6] if len(sys.argv) > 6 else os.path.join(
         REPO, "bench_cache", "scale_pe.bam")
-    assert fmax - 2 * rl < 120, "gap must stay below the minimum exon"
+    write_pe_bam(n_genes, n_pairs, rl, fmin, fmax, out)
+
+
+def write_pe_bam(n_genes, n_pairs, rl, fmin, fmax, out, seed=11):
+    """Write ``n_pairs`` qname-grouped ssfr pairs (BAM) drawn with
+    ``seed``."""
+    if fmax - 2 * rl >= 120:
+        raise ValueError("the inter-mate gap must stay below the minimum "
+                         "exon (120 bp)")
 
     t0 = time.time()
     names, gene_of, exon_lens, keeps = build_structure(n_genes)
@@ -63,7 +71,7 @@ def main():
     print(f"structure: {ntx} transcripts ({time.time()-t0:.1f}s)",
           flush=True)
 
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     F = rng.integers(fmin, fmax + 1, size=n_pairs)
     w = np.where(tx_len >= fmax, tx_len - fmax + 1, 0).astype(np.float64)
     tid = rng.choice(ntx, size=n_pairs, p=w / w.sum())

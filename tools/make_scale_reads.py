@@ -39,10 +39,10 @@ sys.path.insert(0, REPO)
 N_EXONS = 10
 
 
-def build_structure(n_genes):
+def build_structure(n_genes, seed=20260820):
     """Replays gene_family_transcriptome's RNG draws (sim.py), keeping
     only the structure (exon lengths + keep masks) — no sequences."""
-    rng = np.random.default_rng(20260820)
+    rng = np.random.default_rng(seed)
     min_exon, max_exon = 120, 500
     min_iso, max_iso = 2, 6
     names, gene_of, exon_lens, keeps = [], [], [], []
@@ -69,6 +69,11 @@ def main():
     rl = int(sys.argv[3]) if len(sys.argv) > 3 else 76
     out = sys.argv[4] if len(sys.argv) > 4 else os.path.join(
         REPO, "bench_cache", "scale_reads.bowtieout")
+    write_reads(n_genes, n_reads, rl, out)
+
+
+def write_reads(n_genes, n_reads, rl, out, seed=7):
+    """Write ``n_reads`` SE reads (bowtie format) drawn with ``seed``."""
     t0 = time.time()
     names, gene_of, exon_lens, keeps = build_structure(n_genes)
     ntx = len(names)
@@ -95,7 +100,7 @@ def main():
             for x in range(e + 1, f):
                 between[e, f] |= np.uint16(1 << x)
 
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     # uniform start over the concatenated transcriptome, like the
     # reference readgenerator (readgenerator_functions.c:4-114)
     w = np.where(tx_len >= rl, tx_len - rl + 1, 0).astype(np.float64)

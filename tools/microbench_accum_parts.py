@@ -13,8 +13,8 @@ sys.path.insert(0, REPO)
 import jax
 import jax.numpy as jnp
 
-from emsar_tpu.utils import jitcache
-jitcache.enable(os.path.join(REPO, "bench_cache", "jit_cache"))
+from emsar_jax.utils import jitcache
+jitcache.enable()
 
 E = 16_777_216
 U = 8_388_608
@@ -64,7 +64,7 @@ sync(rsg)
 
 @jax.jit
 def e_scans(start, d_ind, tid):
-    from emsar_tpu.index.device_build import _run_bounds, _sig_lanes
+    from emsar_jax.index.device_build import _run_bounds, _sig_lanes
     i = jnp.arange(E, dtype=jnp.int32)
     my_start, next_start = _run_bounds(start)
     cntr = next_start - i

@@ -17,8 +17,8 @@ sys.path.insert(0, REPO)
 import jax
 import jax.numpy as jnp
 
-from emsar_tpu.utils import jitcache
-jitcache.enable(os.path.join(REPO, "bench_cache", "jit_cache"))
+from emsar_jax.utils import jitcache
+jitcache.enable()
 
 NFL = 11
 MV = 1 << 20 + 0
@@ -141,7 +141,7 @@ timeit("E-driven scatter-add -> 256K", scatter_add_small, scidx2)
 
 @jax.jit
 def lanes3(tid):
-    from emsar_tpu.index.device_build import _sig_lanes
+    from emsar_jax.index.device_build import _sig_lanes
     l1, l2, l3 = _sig_lanes(tid)
     return l1 + l2 + l3
 

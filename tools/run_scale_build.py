@@ -22,13 +22,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 CACHE = os.path.join(REPO, "bench_cache")
 
-from emsar_tpu.utils import jitcache  # noqa: E402
-jitcache.enable(os.path.join(CACHE, "jit_cache"))
+from emsar_jax.utils import jitcache  # noqa: E402
+jitcache.enable()
 os.environ.setdefault("EMSAR_DEVBUILD_PROFILE", "1")
 
-from emsar_tpu.io.fasta import read_fasta  # noqa: E402
-from emsar_tpu.config import BuildConfig, StrandType  # noqa: E402
-from emsar_tpu.index.device_build import (build_pe_index_device,  # noqa: E402
+from emsar_jax.io.fasta import read_fasta  # noqa: E402
+from emsar_jax.config import BuildConfig, StrandType  # noqa: E402
+from emsar_jax.index.device_build import (build_pe_index_device,  # noqa: E402
                                           build_se_index_device)
 
 

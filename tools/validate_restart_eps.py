@@ -25,13 +25,13 @@ if os.environ.get("EMSAR_EPS_CPU"):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 else:
-    from emsar_tpu.utils import jitcache
-    jitcache.enable(os.path.join(REPO, "bench_cache", "jit_cache"))
+    from emsar_jax.utils import jitcache
+    jitcache.enable()
 
-from emsar_tpu.config import QuantConfig, StrandType  # noqa: E402
-from emsar_tpu.io.rsh import RshIndex  # noqa: E402
-from emsar_tpu.ingest import native as native_mod  # noqa: E402
-from emsar_tpu.model import quantify as Q  # noqa: E402
+from emsar_jax.config import QuantConfig, StrandType  # noqa: E402
+from emsar_jax.io.rsh import RshIndex  # noqa: E402
+from emsar_jax.ingest import native as native_mod  # noqa: E402
+from emsar_jax.model import quantify as Q  # noqa: E402
 
 CACHE = os.path.join(REPO, "bench_cache")
 
@@ -82,10 +82,10 @@ def main():
     import subprocess
     import tempfile
     from tests.util import write_fasta
-    from emsar_tpu.io.fasta import build_transcriptome
-    from emsar_tpu.index.build import build_se_index
-    from emsar_tpu.config import BuildConfig
-    from emsar_tpu.sim import simulate_fragments
+    from emsar_jax.io.fasta import build_transcriptome
+    from emsar_jax.index.build import build_se_index
+    from emsar_jax.config import BuildConfig
+    from emsar_jax.sim import simulate_fragments
 
     rng = np.random.default_rng(99)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
